@@ -1,10 +1,10 @@
-"""matrix_inversion_tpu — a TPU-native exact-matrix-inversion framework.
+"""matrix_inversion_tpu — an exact-matrix-inversion framework for accelerators.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of Zama's
 ``bounty-matrix-inversion`` (exact LU matrix inversion over QFloat fixed-point
 numbers encoded as base-p digit arrays, reference: /root/reference).
 
-Architecture (TPU-first, not a port):
+Architecture:
 
 * ``ops.radix``   — host-side float/int <-> base-p digit conversion (L1).
 * ``ops.limbs``   — batched digit-array device kernels: carry/borrow
@@ -15,7 +15,7 @@ Architecture (TPU-first, not a port):
   (reference ``matrix_inversion/qfloat.py``), natively *batched*: every op
   broadcasts over leading batch dimensions instead of the reference's
   trace-time scalar loops.
-* ``ops.packed``  — the TPU fast path: a base-tidy QFloat with
+* ``ops.packed``  — the fast path: a base-tidy QFloat with
   ``base**len < 2**62`` is represented exactly as ``(magnitude: int64,
   sign: int32)``.  All reference semantics (including the non-value-function
   per-partial-product cropping of ``from_mul`` and division-by-zero
@@ -28,8 +28,11 @@ Architecture (TPU-first, not a port):
   quantize/encrypt/evaluate/decrypt/dequantize/run; reference
   ``matrix_inversion/main.py``) where "compile" is ``jax.jit`` lowering and
   "simulate" is eager execution.
+* ``ops.fused_inverse`` — the whole inversion as a few Pallas kernels
+  through Triton, one per group of algorithm stages (the default on a
+  single GPU for small n).
 * ``parallel``    — ``jax.sharding.Mesh`` data/cell-parallel execution of
-  large inversion batches over ICI/DCN.
+  large inversion batches over several devices and hosts.
 """
 
 import os as _os
@@ -40,17 +43,21 @@ import jax
 # This must happen before any jax computation runs.
 jax.config.update("jax_enable_x64", True)
 
-# Persistent XLA compilation cache — the TPU analog of the reference's FHE
-# key cache (reference qfloat_matrix_inversion.py:997-998 `.keys`): circuit
-# compilation is minutes-long, so cache executables across processes.
-_cache_dir = _os.environ.get(
-    "MATINV_TPU_CACHE", _os.path.join(_os.path.expanduser("~"), ".cache", "matinv_tpu_xla")
-)
-try:
-    jax.config.update("jax_compilation_cache_dir", _cache_dir)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-except Exception:  # older jax without the knobs — cache is best-effort
-    pass
+# Persistent XLA compilation cache (the analog of the reference's FHE key
+# cache, reference qfloat_matrix_inversion.py:997-998 `.keys`): circuit
+# compilation takes minutes, so executables are kept across processes.
+# JAX_COMPILATION_CACHE_DIR, when set, is honoured by JAX itself; otherwise
+# the cache lives at a fixed path inside the checkout, because the path is
+# part of the cache key.
+if "JAX_COMPILATION_CACHE_DIR" not in _os.environ:
+    jax.config.update(
+        "jax_compilation_cache_dir",
+        _os.path.join(
+            _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+            ".jax_cache",
+        ),
+    )
+jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 from .config import QFloatParams, PRESETS, LOW, MEDIUM, MEDIUM_PLUS, HIGH  # noqa: E402
 from .core.qfloat import QFloat, SignedBinary, Zero, QFloatBase  # noqa: E402

@@ -1,4 +1,4 @@
-"""Configuration objects for the TPU matrix-inversion framework.
+"""Configuration objects for the matrix-inversion framework.
 
 The reference threads a positional ``params`` list
 ``[n, qfloat_len, qfloat_ints, qfloat_base, true_division, tensorize]``
@@ -27,8 +27,8 @@ class QFloatParams:
                      a precomputed reciprocal (more precise, slower;
                      reference qfloat_matrix_inversion.py:384-385).
       tensorize:     group independent scalar QFloat muls/inverts into one
-                     wide tensor op (reference qfloat.py:1023-1181).  On TPU
-                     every op is already batched, so this only changes the
+                     wide tensor op (reference qfloat.py:1023-1181).  Every
+                     op is already batched here, so this only changes the
                      limb-backend op grouping; results are identical.
       backend:       "packed" (int64 fast path), "limb" (digit arrays), or
                      "auto" (packed whenever the encoding fits in int64).
@@ -39,10 +39,9 @@ class QFloatParams:
                      time — independent of n), "vec" vectorizes each sweep
                      with a static outer loop (O(n^2) graph, no wasted
                      lanes; both in models/qfloat_lu_scan.py), "fused" runs
-                     the whole inversion as one VMEM-resident Pallas kernel
-                     per batch tile (ops/fused_inverse.py — the fastest
-                     path on TPU; ~2.8x unroll at n=4 High), "auto" picks
-                     by n and backend.  Results are bit-identical.
+                     the whole inversion as a few register-resident
+                     Pallas kernels through Triton (ops/fused_inverse.py),
+                     "auto" picks by n and backend.  Results are bit-identical.
     """
 
     n: int = 2
@@ -118,27 +117,23 @@ class QFloatParams:
 def knob_state() -> tuple:
     """Current values of every module-global performance knob.
 
-    The lowering knobs (`set_mul_group`, `set_pallas_division`,
-    `set_mul_impl`, `set_tile_rows`, ...) change the TRACED program, so any
+    The lowering knobs (`set_mul_group`, `set_division_impl`,
+    `set_mul_impl`, ...) change the TRACED program, so any
     compiled-circuit memoization must key on them — otherwise flipping a
     knob between two API constructions silently returns the program compiled
     under the old knob values (results are bit-identical either way, but A/B
     perf sweeps would measure nothing).  runtime/api.py includes this tuple
     in its jit/AOT cache keys; changing any knob therefore retraces.
     """
-    from .ops import fused_inverse, packed, pair_qfloat, pallas_kernels
+    from .ops import packed, pair_qfloat
 
     return (
-        packed._PALLAS_DIVISION,
-        packed._PALLAS_MUL,
         packed._DIVISION_IMPL,
         packed._MUL_SCAN,
         packed._MUL_GROUP,
         packed._MUL_TRUNC,
-        pallas_kernels._DIVISION_TILE_ROWS,
         pair_qfloat._MUL_IMPL,
         pair_qfloat._SADD_IMPL,
-        fused_inverse._TILE_ROWS_OVERRIDE,
     )
 
 
@@ -151,19 +146,15 @@ def pinned_knob_state(knobs: tuple):
     was flipped.  Wrapping the circuit body in this context pins the trace
     to the knob values it was cached under (runtime/api.py).
     """
-    from .ops import fused_inverse, packed, pair_qfloat, pallas_kernels
+    from .ops import packed, pair_qfloat
 
     names = [
-        (packed, "_PALLAS_DIVISION"),
-        (packed, "_PALLAS_MUL"),
         (packed, "_DIVISION_IMPL"),
         (packed, "_MUL_SCAN"),
         (packed, "_MUL_GROUP"),
         (packed, "_MUL_TRUNC"),
-        (pallas_kernels, "_DIVISION_TILE_ROWS"),
         (pair_qfloat, "_MUL_IMPL"),
         (pair_qfloat, "_SADD_IMPL"),
-        (fused_inverse, "_TILE_ROWS_OVERRIDE"),
     ]
     saved = [getattr(mod, name) for mod, name in names]
     for (mod, name), value in zip(names, knobs):

@@ -1,4 +1,4 @@
-"""QFloat / SignedBinary / Zero number types, natively batched for TPU.
+"""QFloat / SignedBinary / Zero number types, natively batched.
 
 Re-design of the reference number stack (reference
 matrix_inversion/qfloat.py) with the same numeric semantics:
@@ -301,7 +301,7 @@ class QFloatBase:
         """No-op kept for API parity (reference qfloat.py:780-789).
 
         jnp transparently mixes host and device operands, so clear->
-        encrypted promotion has no TPU analog.  (The reference version
+        encrypted promotion has no analog here.  (The reference version
         would crash anyway: it assigns through always-raising property
         setters — see SURVEY.md 2.3.)
         """

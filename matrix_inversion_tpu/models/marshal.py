@@ -1,6 +1,6 @@
 """Marshalling between float matrices, digit-array I/O, and QFloat matrices.
 
-Mirrors reference qfloat_matrix_inversion.py:222-309 with two TPU-first
+Mirrors reference qfloat_matrix_inversion.py:222-309 with two device-first
 changes:
 
 * every converter accepts leading batch dimensions (``(..., n*n, len)``

@@ -119,11 +119,15 @@ def _all_packed(cells):
 
 
 def qfloat_list_matrix_multiply(matrix1, matrix2):
-    result = [[None] * len(matrix2[0]) for _ in range(len(matrix1))]
-    for i in range(len(matrix1)):
-        for j in range(len(matrix2[0])):
-            result[i][j] = qfloat_list_dot_product(matrix1[i], matrix_column(matrix2, j))
-    return result
+    return [qfloat_list_row_product(row, matrix2) for row in matrix1]
+
+
+def qfloat_list_row_product(row, matrix):
+    """One row of ``[row] x matrix``."""
+    return [
+        qfloat_list_dot_product(row, matrix_column(matrix, j))
+        for j in range(len(matrix[0]))
+    ]
 
 
 # ---------------------------------------------------------------------------
@@ -191,33 +195,40 @@ def qfloat_pivot_cells(M):
     Same math as :func:`qfloat_pivot_matrix` cell by cell — row j of the
     permutation becomes one-hot row ``r = argmax_i |M[i][j]|`` — but with no
     stacked (..., n, n) tensor, no ``.at[].set``: just elementwise int ops on
-    batch-shaped arrays.  This is the form the fused Pallas kernel needs
-    (Mosaic handles (rows, 128) int vectors, not scatter updates on trailing
-    matrix axes).  Reference qfloat_matrix_inversion.py:331-369.
+    batch-shaped arrays.  This is the form the fused kernels need (they
+    hold 1-D per-cell vectors, not scatter updates on trailing matrix
+    axes).  Reference qfloat_matrix_inversion.py:331-369.
     """
     assert len(M) == len(M[0])
     n = len(M)
-    # int32 one-hot masks throughout: under x64, ``bool * 1`` would promote
-    # to int64, which Mosaic cannot lower inside the fused kernel
-    onehot = lambda i, r: (i == r).astype(jnp.int32)
     P = [[1 if i == j else 0 for j in range(n)] for i in range(n)]
     for j in range(n - 1):
-        r = qfloat_argmax(
-            [i for i in range(j, n)], [abs(M[i][j]) for i in range(j, n)]
-        )
-        temp = [row[:] for row in P]
-        # row j becomes row r
-        for c in range(n):
-            bsum = temp[j][c] * onehot(j, r)
-            for i in range(j + 1, n):
-                bsum = bsum + temp[i][c] * onehot(i, r)
-            P[j][c] = bsum
-        # row r becomes row j
-        for jj in range(j + 1, n):
-            e = onehot(jj, r)
-            for c in range(n):
-                P[jj][c] = (1 - e) * temp[jj][c] + e * temp[j][c]
+        pivot_step(j, M, P)
     return P
+
+
+def pivot_step(j, M, P):
+    """Pivot on column ``j``, in place: swap row ``j`` of ``P`` with the
+    row of the largest ``|M[i][j]|``, i >= j."""
+    n = len(M)
+    # int32 one-hot masks throughout: under x64, ``bool * 1`` would promote
+    # to int64
+    onehot = lambda i, r: (i == r).astype(jnp.int32)
+    r = qfloat_argmax(
+        [i for i in range(j, n)], [abs(M[i][j]) for i in range(j, n)]
+    )
+    temp = [row[:] for row in P]
+    # row j becomes row r
+    for c in range(n):
+        bsum = temp[j][c] * onehot(j, r)
+        for i in range(j + 1, n):
+            bsum = bsum + temp[i][c] * onehot(i, r)
+        P[j][c] = bsum
+    # row r becomes row j
+    for jj in range(j + 1, n):
+        e = onehot(jj, r)
+        for c in range(n):
+            P[jj][c] = (1 - e) * temp[jj][c] + e * temp[j][c]
 
 
 # ---------------------------------------------------------------------------
@@ -234,56 +245,63 @@ def qfloat_lu_decomposition(M, qfloat_len, qfloat_ints, true_division=False, ten
 def lu_from_pivot(P, M, qfloat_len, qfloat_ints, true_division=False, tensorize=False):
     """Doolittle LU given a prebuilt SignedBinary pivot matrix ``P``.
 
-    Split out of :func:`qfloat_lu_decomposition` so the fused Pallas kernel
+    Split out of :func:`qfloat_lu_decomposition` so the fused kernel
     (ops/fused_inverse.py), which builds its pivot from per-cell masks
-    (:func:`qfloat_pivot_cells`), can run the identical op sequence.
+    (:func:`qfloat_pivot_cells`), can run the identical op sequence — one
+    :func:`lu_column` per kernel stage.
     """
     assert len(M) == len(M[0])
+    PM, L, U = lu_begin(P, M)
+    for j in range(len(M)):
+        lu_column(j, PM, L, U, qfloat_len, qfloat_ints, true_division, tensorize)
+    return transpose_2D_list(P), L, U
+
+
+def lu_begin(P, M):
+    """``(PM, L, U)``: the permuted matrix and empty L, U factors."""
     n = len(M)
+    return qfloat_list_matrix_multiply(P, M), zero_list_matrix(n), zero_list_matrix(n)
 
-    L = zero_list_matrix(n)
-    U = zero_list_matrix(n)
 
-    PM = qfloat_list_matrix_multiply(P, M)
+def lu_column(j, PM, L, U, qfloat_len, qfloat_ints, true_division=False,
+              tensorize=False):
+    """Column ``j`` of the Doolittle factors, in place: ``U[0..j][j]`` and
+    ``L[j..n-1][j]``.  Reads ``PM[:][j]`` and the earlier columns only."""
+    n = len(PM)
+    L[j][j] = SignedBinary(1)
+    # u_{ij} = a_{ij} - sum_k u_{kj} l_{ik}
+    for i in range(j + 1):
+        if i > 0:
+            s1 = qfloat_list_dot_product(
+                [U[k][j] for k in range(0, i)],
+                [L[i][k] for k in range(0, i)],
+                tensorize,
+            )
+            U[i][j] = PM[i][j] + s1.neg()
+        else:
+            U[i][j] = PM[i][j].copy()
 
-    for j in range(n):
-        L[j][j] = SignedBinary(1)
-        # u_{ij} = a_{ij} - sum_k u_{kj} l_{ik}
-        for i in range(j + 1):
-            if i > 0:
-                s1 = qfloat_list_dot_product(
-                    [U[k][j] for k in range(0, i)],
-                    [L[i][k] for k in range(0, i)],
-                    tensorize,
-                )
-                U[i][j] = PM[i][j] + s1.neg()
+    # l_{ij} = (a_{ij} - sum_k u_{kj} l_{ik}) / u_{jj}
+    if not true_division:
+        inv_Ujj = U[j][j].invert(1, qfloat_len, 0)
+    for i in range(j + 1, n):
+        if j > 0:
+            s2 = qfloat_list_dot_product(
+                [U[k][j] for k in range(0, j)],
+                [L[i][k] for k in range(0, j)],
+                tensorize,
+            )
+            if true_division:
+                L[i][j] = (PM[i][j] + s2.neg()) / U[j][j]
             else:
-                U[i][j] = PM[i][j].copy()
-
-        # l_{ij} = (a_{ij} - sum_k u_{kj} l_{ik}) / u_{jj}
-        if not true_division:
-            inv_Ujj = U[j][j].invert(1, qfloat_len, 0)
-        for i in range(j + 1, n):
-            if j > 0:
-                s2 = qfloat_list_dot_product(
-                    [U[k][j] for k in range(0, j)],
-                    [L[i][k] for k in range(0, j)],
-                    tensorize,
+                L[i][j] = qf_from_mul(
+                    (PM[i][j] + s2.neg()), inv_Ujj, qfloat_len, qfloat_ints
                 )
-                if true_division:
-                    L[i][j] = (PM[i][j] + s2.neg()) / U[j][j]
-                else:
-                    L[i][j] = qf_from_mul(
-                        (PM[i][j] + s2.neg()), inv_Ujj, qfloat_len, qfloat_ints
-                    )
+        else:
+            if true_division:
+                L[i][j] = PM[i][j] / U[j][j]
             else:
-                if true_division:
-                    L[i][j] = PM[i][j] / U[j][j]
-                else:
-                    L[i][j] = qf_from_mul(PM[i][j], inv_Ujj, qfloat_len, qfloat_ints)
-
-    P = transpose_2D_list(P)
-    return P, L, U
+                L[i][j] = qf_from_mul(PM[i][j], inv_Ujj, qfloat_len, qfloat_ints)
 
 
 # ---------------------------------------------------------------------------
@@ -294,45 +312,75 @@ def lu_from_pivot(P, M, qfloat_len, qfloat_ints, true_division=False, tensorize=
 def qfloat_lu_inverse(
     P, L, U, qfloat_len, qfloat_ints, true_division=False, tensorize=False, debug=False
 ):
-    """Inverse from the P, L, U decomposition (QFloat 2D-lists)."""
-    n = len(L)
+    """Inverse from the P, L, U decomposition (QFloat 2D-lists).
 
-    # Forward substitution: L * Y = P
-    Y = zero_list_matrix(n)
-    for i in range(n):
-        # L diagonal is 1, no division needed
-        Y[i][0] = P[i][0].copy()
-        for j in range(1, n):
-            Y[i][j] = P[i][j] - qfloat_list_dot_product(
-                [L[j][k] for k in range(j)], [Y[i][k] for k in range(j)], tensorize
-            )
-
-    # Backward substitution: U * X = Y
-    X = zero_list_matrix(n)
-    if not true_division:
-        if tensorize:
-            Ujj_inv = qf_multi_invert([U[j][j] for j in range(n)], 1, qfloat_len, 0)
-        else:
-            Ujj_inv = [U[j][j].invert(1, qfloat_len, 0) for j in range(n)]
-    for i in range(n - 1, -1, -1):
-        if true_division:
-            X[i][-1] = Y[i][-1] / U[-1][-1]
-        else:
-            X[i][-1] = qf_from_mul(Y[i][-1], Ujj_inv[-1], qfloat_len, qfloat_ints)
-        for j in range(n - 2, -1, -1):
-            temp = Y[i][j] - qfloat_list_dot_product(
-                [U[j][k] for k in range(j + 1, n)],
-                [X[i][k] for k in range(j + 1, n)],
-                tensorize,
-            )
-            if true_division:
-                X[i][j] = temp / U[j][j]
-            else:
-                X[i][j] = qf_from_mul(temp, Ujj_inv[j], qfloat_len, qfloat_ints)
-
+    Row ``i`` of the solution depends only on row ``i`` of ``P`` (and on
+    L, U), so each row is one :func:`lu_inverse_row`.
+    """
+    Ujj_inv = lu_inverse_diagonal(U, qfloat_len, true_division, tensorize)
+    Y, X = [], []
+    for Prow in P:
+        Xi, Yi = lu_inverse_row(
+            Prow, L, U, Ujj_inv, qfloat_len, qfloat_ints, true_division, tensorize
+        )
+        X.append(Xi)
+        Y.append(Yi)
     if not debug:
         return transpose_2D_list(X)
     return transpose_2D_list(X), Y, X
+
+
+def lu_inverse_diagonal(U, qfloat_len, true_division=False, tensorize=False):
+    """Reciprocals of U's diagonal for the multiply-by-reciprocal solve
+    (``None`` with true division)."""
+    if true_division:
+        return None
+    n = len(U)
+    if tensorize:
+        return qf_multi_invert([U[j][j] for j in range(n)], 1, qfloat_len, 0)
+    return [U[j][j].invert(1, qfloat_len, 0) for j in range(n)]
+
+
+def lu_inverse_row(Prow, L, U, Ujj_inv, qfloat_len, qfloat_ints,
+                   true_division=False, tensorize=False):
+    """Row ``i`` of the solution: ``(X[i], Y[i])`` from row ``i`` of P."""
+    n = len(L)
+    Yi = []
+    for j in range(n):
+        Yi.append(lu_forward_step(j, Prow, L, Yi, tensorize))
+    Xi = [Zero() for _ in range(n)]
+    for j in range(n - 1, -1, -1):
+        Xi[j] = lu_backward_step(j, Yi, U, Ujj_inv, Xi, qfloat_len,
+                                 qfloat_ints, true_division, tensorize)
+    return Xi, Yi
+
+
+def lu_forward_step(j, Prow, L, Yi, tensorize=False):
+    """``Y[i][j]`` of the forward substitution L * Y = P (L's diagonal is 1,
+    no division needed), from ``Y[i][:j]``."""
+    if j == 0:
+        return Prow[0].copy()
+    return Prow[j] - qfloat_list_dot_product(
+        [L[j][k] for k in range(j)], [Yi[k] for k in range(j)], tensorize
+    )
+
+
+def lu_backward_step(j, Yi, U, Ujj_inv, Xi, qfloat_len, qfloat_ints,
+                     true_division=False, tensorize=False):
+    """``X[i][j]`` of the backward substitution U * X = Y, from
+    ``X[i][j+1:]``."""
+    n = len(U)
+    if j == n - 1:
+        temp = Yi[-1]
+    else:
+        temp = Yi[j] - qfloat_list_dot_product(
+            [U[j][k] for k in range(j + 1, n)],
+            [Xi[k] for k in range(j + 1, n)],
+            tensorize,
+        )
+    if true_division:
+        return temp / U[j][j]
+    return qf_from_mul(temp, Ujj_inv[j], qfloat_len, qfloat_ints)
 
 
 # ---------------------------------------------------------------------------

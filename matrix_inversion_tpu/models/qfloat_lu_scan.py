@@ -3,7 +3,7 @@
 The unrolled LU layer (models/qfloat_lu.py) mirrors the reference's circuit
 construction (reference qfloat_matrix_inversion.py:377-518): every QFloat op
 of the O(n^3) Doolittle recurrence becomes a node in the traced graph, so
-XLA compile time grows with n^3 (measured ~13 min at n=10 High precision).
+XLA compile time grows with n^3.
 This module lowers the SAME arithmetic as a fixed-size program of nested
 ``lax.scan``s over magnitude/sign tensors, so graph size — and compile
 time — is independent of n.
@@ -137,9 +137,8 @@ def _truediv(num_mag, num_sign, den_mag, den_sign, qfloat_len, qfloat_ints,
 def qfloat_matrix_inverse_scan(mags, signs, n, qfloat_len, qfloat_ints,
                                qfloat_base, true_division, track=False,
                                unroll_dots=False):
-    # unroll_dots=True emits the k-loops as straight-line ops; measured on
-    # v5e it is equal-or-slower than the pure scan (1.40M/1.40M at n=4,
-    # 381k vs 421k at n=8), so the default stays False.
+    # unroll_dots=True emits the k-loops as straight-line ops (more graph,
+    # no measured gain), so the default stays False.
     """Packed-I/O matrix inverse with scanned lowering.
 
     Same contract as :func:`..models.inverse.qfloat_matrix_inverse_packed_io`

@@ -2,7 +2,7 @@
 
 The reference's forward/backward substitution loops over output rows ``i``
 at trace time (reference qfloat_matrix_inversion.py:461-518); each row is
-computed independently with an identical op sequence, so on TPU the whole
+computed independently with an identical op sequence, so the whole
 row loop collapses into one extra leading tensor axis: n times fewer ops
 in the graph (compile time) and n times wider lanes per op (device
 utilization).  Per-lane arithmetic is exactly the reference sequence, so

@@ -1,7 +1,7 @@
 """Batched base-p digit-array kernels (device side).
 
 Semantics are 1:1 with the reference limb functions
-(reference matrix_inversion/base_p_arrays.py), re-designed for TPU:
+(reference matrix_inversion/base_p_arrays.py), re-designed for batched accelerators:
 
 * every kernel broadcasts over arbitrary leading batch dimensions — the
   reference's ``multi_*`` "tensorize" variants (base_p_arrays.py:142-242)
@@ -268,7 +268,7 @@ def tensor_fast_boolean_mul(x, boolean):
 
     Port of the reference's (disabled) TLU micro-optimization
     (base_p_arrays.py:359-365): packs ``x`` and a 0/1 flag into one value
-    and selects with a single table-lookup-shaped op.  On TPU the TLU maps
+    and selects with a single table-lookup-shaped op.  Here the TLU maps
     to a ``where`` on the unpacked flag bit — kept for capability parity;
     ``x * boolean`` fuses identically under XLA.
     """

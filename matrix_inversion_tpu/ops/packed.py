@@ -1,4 +1,4 @@
-"""Packed int64 QFloat backend — the TPU speed-of-light path.
+"""Packed int64 QFloat backend — the fast path of every XLA lowering.
 
 A *base-tidy* QFloat with ``base**len < 2**62`` is uniquely determined by
 ``(magnitude, sign)`` where ``magnitude = sum_j digit_j * base**(L-1-j)``.
@@ -51,17 +51,6 @@ from . import radix
 
 MAG_DTYPE = jnp.int64
 
-# Pallas division routing: None = auto (TPU only), True/False = forced.
-_PALLAS_DIVISION = None
-_PALLAS_MIN_BATCH = 4096
-
-# Pallas windowed-multiply routing (base 2 only): None = auto.  Auto is OFF:
-# measured on v5e (1M batch, n=4 High) the per-multiply kernel is ~24%
-# slower end-to-end than the XLA scan (12.0M vs 15.8M inversions/s) — the
-# launch/pad overhead and lost elementwise fusion outweigh VMEM residency.
-# Kept as an opt-in building block (set_pallas_mul) for fused-kernel work.
-_PALLAS_MUL = None
-
 # Optional overflow tracking — implements the reference's open TODO
 # (reference qfloat.py:255-257, 623-624): overflow past the top digit is
 # the reference's main big-error source and is silently dropped there.
@@ -111,33 +100,6 @@ class track_overflow:
         return False
 
 
-def set_pallas_division(enabled):
-    """Force the Pallas division kernel on/off (None = auto: TPU only)."""
-    global _PALLAS_DIVISION
-    _PALLAS_DIVISION = enabled
-
-
-def set_pallas_mul(enabled):
-    """Force the Pallas windowed-multiply kernel on/off (None = auto)."""
-    global _PALLAS_MUL
-    _PALLAS_MUL = enabled
-
-
-def _pallas_mul_enabled() -> bool:
-    if _PALLAS_MUL is not None:
-        return bool(_PALLAS_MUL)
-    return False
-
-
-def _pallas_division_enabled() -> bool:
-    if _PALLAS_DIVISION is not None:
-        return bool(_PALLAS_DIVISION)
-    try:
-        return jax.default_backend() not in ("cpu",)
-    except Exception:
-        return False
-
-
 def _digit_bits(base: int) -> int:
     if base < 2 or base & (base - 1):
         raise ValueError("packed backend requires a power-of-two base")
@@ -147,12 +109,11 @@ def _digit_bits(base: int) -> int:
 def _signed_value(mag, sign):
     """``mag * sign`` for ``sign`` in {-1, 0, +1}.
 
-    The TPU VPU has no 64-bit integer multiply — XLA emulates ``s64 * s64``
-    with several 32-bit ops — so applying a dynamic sign via multiply is one
-    of the most expensive elementwise ops in the circuit (measured ~25% of
-    the n=4 High inversion wall time across iadd chains and compares).  For
-    signs restricted to {-1, 0, +1} two selects are value-identical and
-    much cheaper.  Static (Python int) signs stay multiplies: XLA folds
+    A 64-bit integer multiply is emulated with several 32-bit ops on
+    32-bit integer hardware, so applying a dynamic sign via multiply is
+    one of the most expensive elementwise ops in the circuit.  For signs
+    restricted to {-1, 0, +1} two selects are value-identical and much
+    cheaper.  Static (Python int) signs stay multiplies: XLA folds
     them to a copy/negate.
     """
     if isinstance(sign, (int, float, np.integer)):
@@ -334,7 +295,7 @@ class PackedQFloat(QFloatBase):
 
     def __gt__(self, other):
         """Reference qfloat.py:711-739 on magnitudes (select form — the
-        reference's flag products are emulated s64 multiplies on TPU)."""
+        reference's flag products are emulated s64 multiplies)."""
         self.check_compatibility(other)
         sgn_eq = jnp.equal(self._sign, other._sign)
         self_gt_other = self._mag > other._mag
@@ -528,10 +489,7 @@ class PackedQFloat(QFloatBase):
         reference base_p_arrays.py:173-203 including zero-divisor saturation.
 
         ``dividend``: int64 magnitudes; ``n_digits``: static digit count of
-        the dividend (also the quotient length).  Large batches on TPU run
-        the fused Pallas kernel (ops/pallas_kernels.py) which keeps the
-        remainder/quotient in VMEM for the whole digit loop; results are
-        bit-identical to the XLA ``fori_loop`` path below.
+        the dividend (also the quotient length).
         """
         return packed_long_division(
             dividend, self._mag, n_digits, self._bits,
@@ -736,22 +694,6 @@ def packed_long_division(dividend, divisor, n_digits, bits, divisor_bits=None):
     use_float = k > 0 and _DIVISION_IMPL in (None, "float") \
         and _DIVISION_IMPL != "classic"
 
-    if _pallas_division_enabled():
-        shape = jnp.broadcast_shapes(jnp.shape(dividend), jnp.shape(divisor))
-        size = 1
-        for s in shape:
-            size *= s
-        if size >= _PALLAS_MIN_BATCH:
-            from . import pallas_kernels
-
-            if use_float:
-                return pallas_kernels.batched_long_division_float(
-                    dividend, divisor, n_bits, k
-                )
-            return pallas_kernels.batched_long_division(
-                dividend, divisor, n_digits, bits
-            )
-
     if use_float:
         return _long_division_float(dividend, divisor, n_bits, k)
 
@@ -798,17 +740,13 @@ def _mul_window_consts(a_ints, a_len, b_ints, b_len, newlength, newints, bits):
     return u(a_sh), u(b_sh), u(b_mask), u(o_sh)
 
 
-# Multiply lowering style: "scan" keeps O(1) graph nodes per multiply and
-# measured FASTER end-to-end on v5e than the unrolled form (14.7M vs 9.0M
-# n=4 High inversions/s at 1M batch — XLA's loop codegen beats its fusion
-# of 40 dependent uint64 steps here); "unroll" kept for experiments.
-# None = auto: scan.
+# Multiply lowering style: "scan" keeps O(1) graph nodes per multiply;
+# "unroll" emits the ~40 dependent uint64 steps as straight-line ops and is
+# kept for experiments.  None = auto: scan.
 _MUL_SCAN = None
 
 # Partial products accumulated per scan step (the loop body stays one
 # fused elementwise kernel; fewer iterations amortize the loop carry).
-# Swept on v5e (1M batch, n=4 High): G=1 15.81M, G=2 17.44M, G=4 17.18M,
-# G=8 16.55M, G=40 (full unroll) 13.47M inversions/s -> default 2.
 _MUL_GROUP = 2
 
 
@@ -846,14 +784,12 @@ def _mul_trunc_packed(au, bu, a_len, a_ints, b_len, b_ints,
     t1 = bits * t_dig
     if t1 <= 0:
         return ((au * bu) << jnp.uint64(-t1)) & out_mask
-    # NOTE: the single-word floor-correction form (pair_math.mul_truncated:
-    # out = ((a*b - C) >> t1) & mask, C in one uint32) was measured HERE
-    # and REJECTED for the XLA path: same-day v5e A/B on the n=4 High
-    # unroll lowering gave 28.3M -> 14.6M inversions/s — the uint64<->
-    # uint32 dtype boundary appears to break XLA's elementwise fusion and
-    # the HBM-bound path pays a materialization per boundary.  Inside the
-    # fused Pallas kernel (everything register/VMEM-resident) the same
-    # form is a clear win and is used by pair_math.
+    # The single-word floor-correction form (pair_math.mul_truncated:
+    # out = ((a*b - C) >> t1) & mask, C in one uint32) is not used on this
+    # XLA path: its uint64<->uint32 dtype boundary splits XLA's elementwise
+    # fusions, and every boundary is a round trip through device memory.
+    # Inside the fused kernel, where everything stays in registers, pair_math
+    # uses it.
     acc = (au >> jnp.uint64(t1)) * bu
     for p in range(max(0, t_dig - b_len + 1), min(t_dig, a_len)):
         w = bu >> jnp.uint64(bits * (t_dig - p))
@@ -877,26 +813,6 @@ def _mul_window_packed(a_mag, a_ints, a_len, b_mag, b_ints, b_len,
     out_mask = jnp.uint64((1 << (bits * newlength)) - 1)
     consts = _mul_window_consts(a_ints, a_len, b_ints, b_len, newlength, newints, bits)
 
-    # Pallas fast path (base 2, no overflow tracking): the whole partial-
-    # product chain runs VMEM-resident instead of carrying an XLA loop
-    # state through HBM each of the ~a_len steps.
-    if (
-        bits == 1
-        and not with_ovf
-        and _OVERFLOW_TRACKER is None
-        and _pallas_mul_enabled()
-    ):
-        shape = jnp.broadcast_shapes(jnp.shape(a_mag), jnp.shape(b_mag))
-        size = 1
-        for s in shape:
-            size *= s
-        if size >= _PALLAS_MIN_BATCH:
-            from . import pallas_kernels
-
-            return pallas_kernels.batched_mul_window(
-                a_mag, b_mag, consts, newlength
-            )
-
     au = a_mag.astype(jnp.uint64)
     bu = b_mag.astype(jnp.uint64)
 
@@ -912,8 +828,8 @@ def _mul_window_packed(a_mag, a_ints, a_len, b_mag, b_ints, b_len,
         return acc.astype(MAG_DTYPE)
 
     # For base 2 the digit a_i is 0/1, so the partial product is a mask:
-    # (window << o_sh) & (0 - a_i) replaces a 64-bit multiply (which the
-    # TPU VPU emulates with several 32-bit ops) with one AND.
+    # (window << o_sh) & (0 - a_i) replaces a 64-bit multiply (emulated
+    # with several 32-bit ops) with one AND.
     if bits == 1:
         mac = lambda acc, a_i, window, o_sh: acc + (
             (window << o_sh) & (jnp.uint64(0) - a_i)

@@ -1,8 +1,9 @@
-"""uint32 (hi, lo) pair arithmetic — the TPU-register-level number format.
+"""uint32 (hi, lo) pair arithmetic — the register-level number format.
 
-The TPU VPU is a 32-bit machine: XLA emulates every int64 elementwise op
-with several u32 ops, and Mosaic (Pallas) has no 64-bit integers at all.
-This module implements the <2**64 unsigned arithmetic the packed QFloat
+The fused kernel keeps its state in 32-bit registers: a 64-bit integer op
+costs several 32-bit instructions, and the shifts, masks and compares the
+packed circuit needs map one to one onto 32-bit words.  This module
+implements the <2**64 unsigned arithmetic the packed QFloat
 backend needs (see ops/packed.py) on explicit ``(hi, lo)`` uint32 pairs:
 
 * plain jnp on arrays -> usable eagerly, under jit, AND inside Pallas
@@ -13,7 +14,7 @@ backend needs (see ops/packed.py) on explicit ``(hi, lo)`` uint32 pairs:
 Bit-exactness contract: each function reproduces the corresponding int64
 routine in ops/packed.py digit for digit (property-tested in
 tests/test_pair_qfloat.py); the division/multiply bodies here are the
-single source of truth for the Pallas kernels in ops/pallas_kernels.py.
+single source of truth for the fused kernel in ops/fused_inverse.py.
 """
 
 from __future__ import annotations
@@ -127,8 +128,8 @@ def mul_small(hi, lo, k):
 def to_f32(hi, lo):
     """(hi, lo) pair -> f32, in signed-int-safe pieces.
 
-    Mosaic's reliable integer->float convert is s32->f32, so every piece is
-    kept below 2**31: hi < 2**30 for our < 2**62 values, lo is split 8/24.
+    Every piece goes through an s32->f32 convert, so it is kept below
+    2**31: hi < 2**30 for our < 2**62 values, lo is split 8/24.
     lo >> 8 < 2**24 and lo & 255 convert exactly; the two adds round once
     each, so the total relative error is <= ~2**-23 — far inside the +-1
     fixup budget of the float-assisted division.
@@ -158,14 +159,17 @@ def div_float(vhi, vlo, dhi, dlo, n_bits: int, k: int, d_bits: int = None):
     zero = jnp.zeros_like(vhi)
 
     is_zero = (dhi | dlo) == 0
-    # divide by 1 when the divisor is 0, saturate later (keep array
-    # operands: scalar where operands become closed_calls Mosaic cannot
-    # lower)
+    # divide by 1 when the divisor is 0, saturate later
     dslo = jnp.where(is_zero, jnp.ones_like(dlo), dlo)
     # loop-invariant biased reciprocal: the 1 - 2**-17 factor dominates the
     # <= ~4 rounding errors (each <= ~2**-23: two to_f32 adds, the divide,
     # the per-chunk multiply), so the total relative error is in
-    # (2**-18, 2**-16) and ALWAYS downward
+    # (2**-18, 2**-16) and ALWAYS downward.  A compiler may lower the f32
+    # divide to an approximate reciprocal (Triton on the GPU: <= 2 ulp,
+    # ~2**-22) and contract a*b + c into one FMA (one rounding instead of
+    # two); both keep each op's error far below the 2**-17 bias, so the
+    # bound holds.  tests/test_gpu.py checks it on the card on the floor
+    # boundary cases.
     rdf = (1.0 - 2.0 ** -17) / to_f32(dhi, dslo)
     # 16-bit limbs of the divisor for the q_est * divisor partial products;
     # limbs above d_bits are statically zero and skipped

@@ -4,8 +4,8 @@ Same numeric semantics as :class:`matrix_inversion_tpu.ops.packed.PackedQFloat`
 (itself digit-exact with the reference, see that module's docstring), but the
 magnitude lives in two uint32 words instead of one int64.  Why it exists:
 
-* Mosaic (Pallas TPU) has no 64-bit integers, so a Pallas kernel that wants
-  QFloat arithmetic must run on pairs.  PairQFloat lets the *existing*
+* The fused kernel keeps its state in 32-bit registers, so QFloat
+  arithmetic inside it runs on pairs.  PairQFloat lets the *existing*
   trace-time circuit machinery (models/qfloat_lu.py — pivoting, LU
   decomposition, substitution, the 2x2 closed form) run unmodified INSIDE a
   Pallas kernel body: the fused whole-inversion kernel
@@ -13,7 +13,7 @@ magnitude lives in two uint32 words instead of one int64.  Why it exists:
   cells.
 * It is plain jnp on uint32 arrays, so it also runs eagerly / under jit on
   any backend — which is how its bit-exactness against PackedQFloat is
-  property-tested (tests/test_pair_qfloat.py) without a TPU.
+  property-tested (tests/test_pair_qfloat.py) without a GPU.
 
 Semantics notes (mirroring ops/packed.py):
 
@@ -52,9 +52,7 @@ _I32 = jnp.int32
 # Multiply lowering: "trunc" (default) = one wide multiply for the unfloored
 # digits + per-digit floors (pair_math.mul_truncated); "window" = one masked
 # shift-add per digit of ``a`` (pair_math.mul_window).  Bit-identical
-# (property-tested); measured on v5e inside the fused whole-inversion kernel
-# (n=4 High, 1M batch): +7% at equal tile (53.5M -> 57.2M inv/s) and it
-# shifts the optimal tile from 64 to 32 rows, landing at 61.5M.
+# (property-tested); "trunc" needs far fewer ops per multiply.
 _MUL_IMPL = "trunc"
 
 

@@ -1,7 +1,7 @@
 """Multi-host (DCN) initialization and batch-sharding helpers.
 
 The reference is strictly single-process (SURVEY.md section 2, parallelism
-checklist).  This module is the multi-host entry point for the TPU build:
+checklist).  This module is the multi-host entry point:
 one process per host joins a ``jax.distributed`` cluster, the global mesh
 spans all chips, and each host feeds its local shard of the inversion
 batch.  On a single host everything degrades to the local mesh.

@@ -2,10 +2,10 @@
 
 The reference's only concurrency is single-host dataflow parallelism
 (reference qfloat_matrix_inversion.py:1001) plus the "tensorize" batching
-of scalar ops.  The TPU-native scaling model is:
+of scalar ops.  The scaling model here is:
 
-* ``data`` axis — batches of independent inversions sharded across chips
-  (ICI) and hosts (DCN).  LU over one matrix is column-sequential, so batch
+* ``data`` axis — batches of independent inversions sharded across devices
+  and hosts.  LU over one matrix is column-sequential, so batch
   data-parallelism is the efficient axis (SURVEY.md section 7).
 * ``cell`` axis — the n*n matrix-cell axis, sharded during the
   embarrassingly-parallel marshalling stages (pack/unpack) and gathered
@@ -72,16 +72,15 @@ def data_parallel_inverse(params: QFloatParams, mesh: Mesh, backend=None):
 
 
 def data_parallel_inverse_fused(params: QFloatParams, mesh: Mesh,
-                                tile_rows=None, interpret=False,
                                 track=False):
     """Batch-sharded FUSED inversion: shard_map around the whole-inversion
-    Pallas kernel (ops/fused_inverse.py), packed I/O.
+    Triton kernels (ops/fused_inverse.py), packed I/O.
 
     Why shard_map and not jit-with-shardings: under automatic partitioning
     XLA would have to shard the Pallas custom call itself; shard_map
     instead runs one independent kernel per device on its batch shard —
-    the natural multi-chip form of an embarrassingly-parallel batch (zero
-    collectives, aggregate rate = per-chip rate x N by construction).
+    the natural multi-device form of an embarrassingly-parallel batch (zero
+    collectives).
     Bit-exact with every other lowering (tests/test_sharding.py).
 
     ``track=True`` adds the per-matrix overflow flag as a third output
@@ -97,8 +96,7 @@ def data_parallel_inverse_fused(params: QFloatParams, mesh: Mesh,
     def shard_fn(mags, signs):
         return fused_matrix_inverse(
             mags, signs, p.n, p.qfloat_len, p.qfloat_ints, p.qfloat_base,
-            p.true_division, tile_rows=tile_rows, interpret=interpret,
-            track=track,
+            p.true_division, track=track,
         )
 
     out_specs = (P("data", None), P("data", None))

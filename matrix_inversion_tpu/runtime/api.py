@@ -1,10 +1,11 @@
 """User-facing API: compile/quantize/encrypt/evaluate/decrypt/dequantize/run.
 
-TPU re-design of the reference driver (reference matrix_inversion/main.py:
-17-116).  The mapping of the FHE lifecycle onto the XLA runtime:
+Re-design of the reference driver (reference matrix_inversion/main.py:
+17-116) for an XLA device.  The mapping of the FHE lifecycle onto the XLA
+runtime:
 
 =================  =========================================================
-reference step      TPU-native equivalent
+reference step      equivalent here
 =================  =========================================================
 compiler.compile    ``jax.jit(...).lower(shapes).compile()`` (AOT, cached)
 circuit.keygen      no-op (kept for API parity; XLA has no key material)
@@ -41,7 +42,7 @@ def _circuit_fn(params: QFloatParams, backend: str, io: str,
     """Shared circuit body per (params, backend, io, track, perf knobs) —
     one jit entry per configuration regardless of how many API objects are
     constructed.  The perf-knob state is part of the key so flipping a knob
-    (``set_mul_group``, ``set_tile_rows``, ...) retraces instead of silently
+    (``set_mul_group``, ``set_mul_impl``, ...) retraces instead of silently
     reusing the program compiled under the old knob values."""
     return _circuit_fn_cached(params, backend, io, track, knob_state())
 
@@ -287,7 +288,7 @@ class EncryptedMatrixInversion:
 class BatchedMatrixInversion:
     """Flagship batched API: invert (B, n, n) matrices in one device program.
 
-    This is the TPU-native execution model the reference lacks: the entire
+    This is the batched execution model the reference lacks: the entire
     10^4-inversion precision benchmark (reference
     qfloat_matrix_inversion.py:883-970) becomes ONE compiled program over a
     batch axis, optionally sharded over a device mesh (see
@@ -306,22 +307,20 @@ class BatchedMatrixInversion:
         data_parallel: bool = None,
         track_overflow: bool = False,
     ):
-        """``data_parallel``: None = auto.  On a multi-device TPU process
-        with packed io and a fused-eligible config, auto builds the
+        """``data_parallel``: None = auto.  In a multi-GPU process with
+        packed io and a fused-eligible config, auto builds the
         shard_map-wrapped fused kernel over all devices
         (``parallel.mesh.data_parallel_inverse_fused``) — the
-        ``lowering="auto"`` policy for multi-chip meshes (round-3 verdict
-        weak #2: auto used to silently drop to the 2.4x-slower unroll
-        there).  True forces it (any backend incl. the CPU test mesh,
-        where the kernel runs in interpret mode); False disables.
+        ``lowering="auto"`` policy for several devices.  True forces it
+        (any backend incl. the CPU test mesh, where the kernel runs in
+        interpret mode); False disables.
 
         ``track_overflow=True`` (packed io only) compiles the tracked
         circuit (``qfloat_matrix_inverse_with_overflow``): ``run`` then
         returns ``(inverses, overflowed)`` where ``overflowed`` is an
         int (B,) flag per matrix — the reference's open TODO (its
         qfloat.py:255-257; overflow is its documented main big-error
-        source), so production callers can reject saturated results.
-        Costs ~12%% on the fused path at n=4 High (results/fused.json)."""
+        source), so production callers can reject saturated results."""
         if backend != "auto":
             params = params.replace(backend=backend)
         self.params = params
@@ -347,7 +346,7 @@ class BatchedMatrixInversion:
                 and not donate
                 and params.lowering in ("auto", "fused")
                 and params.n <= FUSED_MAX_N
-                and jax.default_backend() not in ("cpu",)
+                and jax.default_backend() == "gpu"
                 and jax.device_count() > 1
                 and batch_size % jax.device_count() == 0
             )
@@ -363,8 +362,7 @@ class BatchedMatrixInversion:
 
             mesh = make_mesh(axis_names=("data",))
             self._jitted = data_parallel_inverse_fused(
-                params, mesh, interpret=jax.default_backend() == "cpu",
-                track=track_overflow,
+                params, mesh, track=track_overflow
             )
             self._fn = self._jitted  # simulate path == compiled path here
             arg0 = jax.ShapeDtypeStruct((batch_size, p.n * p.n), jnp.int64)

@@ -1,20 +1,76 @@
 """ctypes bindings for the native marshalling library (native/qmarshal.cc).
 
-Loads ``native/build/libqmarshal.so`` when present (build with
-``native/build.sh``); every entry point has a numpy fallback in
-``ops.radix``, so the framework works without the native build — just with
-slower host-side quantization for very large batches.
+The library is compiled with ``-march=native``, so it is only ever loaded
+from a build directory stamped with this host and the source's hash:
+``native/build/<host>-<machine>-<sha256[:12]>/libqmarshal.so``.  A library
+built on another machine, or from other source, is never found.  Build it
+with ``python -m matrix_inversion_tpu.runtime.native`` (needs a C++17
+compiler).  Every entry point has a numpy fallback in ``ops.radix``, so the
+framework works without the build — just with slower host-side
+quantization for very large batches.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
+import shutil
+import subprocess
+import tempfile
 
 import numpy as np
 
+_NATIVE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "native",
+)
+_SOURCE = os.path.join(_NATIVE_DIR, "qmarshal.cc")
+
 _LIB = None
 _TRIED = False
+
+
+def library_path() -> str:
+    """Where this host's build of the current source lives."""
+    with open(_SOURCE, "rb") as fh:
+        digest = hashlib.sha256(fh.read()).hexdigest()[:12]
+    stamp = f"{platform.node()}-{platform.machine()}-{digest}"
+    return os.path.join(_NATIVE_DIR, "build", stamp, "libqmarshal.so")
+
+
+def build() -> str:
+    """Compile native/qmarshal.cc for this host (no-op when already built).
+
+    Raises ``RuntimeError`` when no C++ compiler is found and
+    ``subprocess.CalledProcessError`` when compilation fails.
+    """
+    global _TRIED
+    path = library_path()
+    _TRIED = False  # let the next call load this build
+    if os.path.exists(path):
+        return path
+    cxx = shutil.which("c++") or shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("no C++ compiler (c++ or g++) on PATH")
+    out_dir = os.path.dirname(path)
+    os.makedirs(out_dir, exist_ok=True)
+    # build beside the target and rename: concurrent builders never load a
+    # half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    try:
+        subprocess.run(
+            [cxx, "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
+             "-pthread", _SOURCE, "-o", tmp],
+            check=True,
+        )
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return path
 
 
 def _lib():
@@ -22,16 +78,11 @@ def _lib():
     if _TRIED:
         return _LIB
     _TRIED = True
-    path = os.environ.get("QMARSHAL_LIB")
-    if path is None:
-        here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-        path = os.path.join(here, "native", "build", "libqmarshal.so")
+    path = library_path()
     if not os.path.exists(path):
         return None
-    try:
-        lib = ctypes.CDLL(path)
-    except OSError:
-        return None
+    lib = ctypes.CDLL(path)
+    lib.qmarshal_abi_version.restype = ctypes.c_int
     if lib.qmarshal_abi_version() != 1:
         return None
 
@@ -106,3 +157,7 @@ def pack_digits(digits, base):
     out = np.empty(digits.shape[:-1], dtype=np.int64)
     lib.pack_digits(digits.reshape(-1, length), n, length, base, out.reshape(-1))
     return out
+
+
+if __name__ == "__main__":
+    print(build())

@@ -1,6 +1,6 @@
 """Debug drivers: PLU comparison dumps and single-shot python inversion.
 
-TPU analogs of the reference debug harness
+Analogs of the reference debug harness
 (reference qfloat_matrix_inversion.py:763-880): run the QFloat circuit
 eagerly on one matrix and compare P/L/U/Y/X against the float oracle.
 """

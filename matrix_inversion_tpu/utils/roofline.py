@@ -1,34 +1,23 @@
-"""Roofline / MFU analysis for the batched inversion programs.
+"""Op-count roofline for the batched inversion programs.
 
-Round-1 verdict item 4: the headline inversions/s number needs a
-denominator.  This module counts the *logical elementwise work* of a
-circuit — u32-equivalent ALU ops per inversion — by walking its jaxpr
-(recursing into scan/cond bodies with their trip counts), and compares the
-achieved rate against the TPU VPU integer roofline.
+Counts the *logical elementwise work* of a circuit — u32-equivalent ALU ops
+per inversion — by walking its jaxpr (recursing into scan/cond bodies with
+their trip counts), and divides an issue rate the caller supplies by it.
 
 Cost model:
 
 * every elementwise arithmetic/logic/compare/select primitive costs
   ``#output elements x dtype_weight`` u32-equivalent ops;
-* int64 ops weigh 2 (TPU has no native s64: XLA lowers them to s32 pairs —
+* int64 ops weigh 2 (64-bit integer ops are emulated as 32-bit pairs —
   add/sub/logic are 2-3 s32 ops, shifts/compares similar, multiplies more;
-  2 is deliberately optimistic so the reported MFU is an upper bound of
+  2 is deliberately optimistic so the reported share is an upper bound of
   how much headroom remains);
 * data movement (reshape/broadcast/slice/concat/convert/gather) costs 0 —
   this is an ALU roofline, not a bandwidth roofline.
 
-VPU bound: the default is the MEASURED v5e u32-add issue rate (1.5e12
-elem-ops/s, benchmarks/ubench_vpu.py — straight-line Pallas chains, launch
-cost differenced out).  The old theoretical 4-ALU figure (8*128*4*0.94e9
-~= 3.85e12) was shown unachievable by those microbenchmarks and is
-retired.  NOTE (round 5): the add rate is itself conservative for mixed
-programs — the issue rate depends strongly on port mix (shift/cmp/select
-mixes sustain 2.2-2.4T, and the fused kernel's own blend 2.67T, because
-constant-mask ANDs and u32<->i32 converts are near-free; see
-benchmarks/results/ubench.json).  The benchmark driver therefore passes
-the measured kernel-blend rate via ``measured_rates``
-(benchmarks/run_benchmarks.py:_blend_rate); the 1.5T default is only the
-fallback when no same-chip calibration artifact exists.
+No rate is assumed for any device: every bound takes the device's
+u32-equivalent issue rate (elem-ops/s) from the caller, measured on that
+device.
 """
 
 from __future__ import annotations
@@ -128,22 +117,16 @@ def count_u32_ops(fn, *example_args, realistic: bool = False) -> float:
     return _count_jaxpr(jaxpr.jaxpr, realistic)
 
 
-#: measured v5e u32 vector-ALU issue rate (benchmarks/ubench_vpu.py); the
-#: single source for every default roofline bound in this module
-MEASURED_U32_RATE_V5E = 1.5e12
-
-
 def flagship_roofline(
+    ops_per_s: float,
     batch: int = None,
     measured_inversions_per_s: float = None,
-    vpu_ops_per_s: float = MEASURED_U32_RATE_V5E,
 ):
     """Ops/inversion + roofline for the flagship n=4 High packed circuit.
 
-    Returns a dict with ops_per_inversion, the VPU-bound inversions/s, and
-    (when a measured rate is given) the achieved MFU fraction.  The default
-    bound is the MEASURED v5e issue rate, not the discredited theoretical
-    3.85e12 4-ALU figure (see module docstring).
+    ``ops_per_s`` is the device's u32-equivalent issue rate.  Returns a dict
+    with ops_per_inversion, the issue-bound inversions/s, and (when a
+    measured rate is given) the achieved share of that bound.
     """
     import functools
 
@@ -168,12 +151,12 @@ def flagship_roofline(
     signs = jnp.ones((B, 16), jnp.int64)
     per_inv = count_u32_ops(fn, mags, signs) / B
     per_inv_real = count_u32_ops(fn, mags, signs, realistic=True) / B
-    bound = vpu_ops_per_s / per_inv
-    bound_real = vpu_ops_per_s / per_inv_real
+    bound = ops_per_s / per_inv
+    bound_real = ops_per_s / per_inv_real
     out = {
         "ops_per_inversion_u32eq_floor": round(per_inv, 1),
         "ops_per_inversion_u32eq_realistic": round(per_inv_real, 1),
-        "vpu_ops_per_s": vpu_ops_per_s,
+        "ops_per_s": ops_per_s,
         "roofline_inversions_per_s_upper": round(bound, 1),
         "roofline_inversions_per_s_realistic": round(bound_real, 1),
     }
@@ -188,37 +171,34 @@ def flagship_roofline(
     return out
 
 
-def kernel_op_histogram(n: int = 4, preset: str = "high", rows: int = 8):
-    """Primitive histogram of the ACTUAL fused-kernel body, per inversion.
+def kernel_op_histogram(n: int = 4, preset: str = "high", elems: int = 128):
+    """Primitive histogram of the fused kernels, per inversion.
 
     The packed-circuit count above models the XLA int64 lowerings; the
-    fused Pallas kernel executes a different program — the uint32 pair
-    form (ops/pair_math.py).  This traces ``fused_inverse_body`` (pure
-    jnp) and counts each ALU primitive's per-element ops per inversion,
-    giving both the true instruction mix (what to optimize next) and the
-    numerator for a measured-rate roofline (see ``kernel_roofline``).
+    fused kernels execute a different program — the uint32 pair form
+    (ops/pair_math.py).  This traces the kernels' stages on the whole
+    batch (``fused_matrix_inverse(..., pallas=False)``, the same stage
+    code with the same merging) and counts each ALU primitive's
+    per-element ops per inversion, giving both the true instruction mix
+    (what to optimize next) and the numerator for a measured-rate roofline
+    (see ``kernel_roofline``).
     """
+    import functools
+
     import jax
     import jax.numpy as jnp
 
     from ..config import PRESETS
-    from ..ops.fused_inverse import LANES, fused_inverse_body
+    from ..ops.fused_inverse import fused_matrix_inverse
 
     p = PRESETS[preset].replace(n=n)
-    n2 = n * n
-    elems = rows * LANES
-
-    def fn(hi, lo, sg):
-        return fused_inverse_body(
-            [hi[i] for i in range(n2)],
-            [lo[i] for i in range(n2)],
-            [sg[i] for i in range(n2)],
-            n, p.qfloat_len, p.qfloat_ints, p.qfloat_base, p.true_division,
-        )
-
-    z = jnp.zeros((n2, rows, LANES), jnp.uint32)
-    s = jnp.ones((n2, rows, LANES), jnp.int32)
-    jaxpr = jax.make_jaxpr(fn)(z, z, s)
+    fn = functools.partial(
+        fused_matrix_inverse, n=n, qfloat_len=p.qfloat_len,
+        qfloat_ints=p.qfloat_ints, base=p.qfloat_base,
+        true_division=p.true_division, pallas=False,
+    )
+    z = jnp.zeros((elems, n * n), jnp.int64)
+    jaxpr = jax.make_jaxpr(fn)(z, jnp.ones_like(z))
 
     hist = {}
 
@@ -242,19 +222,19 @@ def kernel_op_histogram(n: int = 4, preset: str = "high", rows: int = 8):
     return dict(sorted(hist.items(), key=lambda kv: -kv[1]))
 
 
-def kernel_roofline(measured_inversions_per_s=None, n=4, preset="high",
-                    measured_rates=None):
+def kernel_roofline(ops_per_s, measured_inversions_per_s=None, n=4,
+                    preset="high"):
     """Roofline for the fused kernel from its real op histogram.
 
-    ``measured_rates``: {primitive_name: elem-ops/s} measured on-chip with
-    the straight-line Pallas microbenchmark (benchmarks/ubench results);
-    missing primitives fall back to ``"default"``.  Without rates, uses the
-    measured u32 vector-ALU issue rate as a uniform bound.
+    ``ops_per_s``: the device's u32-equivalent issue rate, either one number
+    or ``{primitive_name: elem-ops/s}`` with a ``"default"`` entry for
+    primitives not listed.
     """
     hist = kernel_op_histogram(n, preset)
-    rates = dict(measured_rates or {})
-    has_default = "default" in rates
-    default = rates.pop("default", MEASURED_U32_RATE_V5E)
+    rates = dict(ops_per_s) if isinstance(ops_per_s, dict) else {
+        "default": ops_per_s
+    }
+    default = rates.pop("default")
     time_per_inv = sum(
         cnt / rates.get(prim, default) for prim, cnt in hist.items()
     )
@@ -262,29 +242,27 @@ def kernel_roofline(measured_inversions_per_s=None, n=4, preset="high",
     out = {
         "ops_per_inversion_kernel": round(sum(hist.values()), 1),
         "kernel_op_histogram": {k: round(v, 1) for k, v in hist.items()},
-        "vpu_issue_rate": default,
-        # honest provenance: the fallback is a v5e constant measured by
-        # benchmarks/ubench_vpu.py on THIS project's chip, not something
-        # measured on the caller's platform unless they passed rates in
-        "rate_source": (
-            "measured" if (measured_rates and (rates or has_default))
-            else "default-v5e-ubench"
-        ),
-        "roofline_inversions_per_s_measured_rates": round(bound, 1),
+        "ops_per_s": default,
+        "roofline_inversions_per_s": round(bound, 1),
     }
     if measured_inversions_per_s:
         out["measured_inversions_per_s"] = measured_inversions_per_s
-        out["mfu_pct_vs_measured_roofline"] = round(
+        out["pct_of_roofline"] = round(
             100.0 * measured_inversions_per_s / bound, 2
         )
     return out
 
 
 if __name__ == "__main__":
-    import sys
+    import argparse
 
-    measured = float(sys.argv[1]) if len(sys.argv) > 1 else None
-    if len(sys.argv) > 2 and sys.argv[2] == "kernel":
-        print(json.dumps(kernel_roofline(measured_inversions_per_s=measured)))
-    else:
-        print(json.dumps(flagship_roofline(measured_inversions_per_s=measured)))
+    ap = argparse.ArgumentParser(description="op-count roofline")
+    ap.add_argument("ops_per_s", type=float,
+                    help="the device's u32-equivalent issue rate, elem-ops/s")
+    ap.add_argument("--measured", type=float, default=None,
+                    help="measured inversions/s to place against the bound")
+    ap.add_argument("--kernel", action="store_true",
+                    help="count the fused kernel body, not the XLA circuit")
+    a = ap.parse_args()
+    fn = kernel_roofline if a.kernel else flagship_roofline
+    print(json.dumps(fn(a.ops_per_s, measured_inversions_per_s=a.measured)))

@@ -1,6 +1,6 @@
 // qmarshal — native host-side QFloat marshalling for matrix_inversion_tpu.
 //
-// The TPU equivalents of the reference's host-side quantize/dequantize steps
+// The native equivalents of the reference's host-side quantize/dequantize steps
 // (reference main.py:68-91, qfloat_matrix_inversion.py:222-309): converting
 // large batches of float64 matrices into base-p digit arrays / packed int64
 // magnitudes and back.  For 10^5+ matrices per step this is real host work

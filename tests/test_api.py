@@ -162,23 +162,6 @@ def test_perf_knobs_invalidate_circuit_cache(rng):
         set_mul_group(2)
 
 
-def test_set_tile_rows_forces_value():
-    """Round-3 advisor: set_tile_rows(DEFAULT) must force that value, not
-    silently re-enable the per-n table."""
-    from matrix_inversion_tpu.ops import fused_inverse as fi
-
-    try:
-        assert fi._default_tile_rows(3) == fi._TILE_ROWS_BY_N[3]
-        fi.set_tile_rows(40)
-        for n in (2, 3, 4, 5, 6):
-            assert fi._default_tile_rows(n) == 40
-        fi.set_tile_rows(None)
-        assert fi._default_tile_rows(2) == fi._TILE_ROWS_BY_N[2]
-        assert fi._default_tile_rows(4) == fi._TILE_ROWS_DEFAULT
-    finally:
-        fi.set_tile_rows(None)
-
-
 def test_batched_api_track_overflow(rng):
     """BatchedMatrixInversion(track_overflow=True) returns (inverses,
     flags) matching the model-level tracked circuit."""
@@ -233,3 +216,27 @@ def test_single_matrix_track_overflow(rng):
     assert flag_sing == 1
     with pytest.raises(ValueError, match="track_overflow requires"):
         EncryptedMatrixInversion(3, track_overflow=True)
+
+
+@pytest.mark.parametrize("env_dir", [None, "custom"])
+def test_compile_cache_dir(tmp_path, env_dir):
+    """JAX_COMPILATION_CACHE_DIR wins when set; otherwise the cache sits at
+    a fixed path inside the checkout."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent.parent
+    env = {k: v for k, v in os.environ.items()
+           if k != "JAX_COMPILATION_CACHE_DIR"}
+    env["PYTHONPATH"] = str(repo)
+    expected = repo / ".jax_cache"
+    if env_dir:
+        expected = tmp_path / env_dir
+        env["JAX_COMPILATION_CACHE_DIR"] = str(expected)
+    code = ("import matrix_inversion_tpu, jax; "
+            "print(jax.config.jax_compilation_cache_dir)")
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=tmp_path,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.strip() == str(expected)

@@ -1,7 +1,7 @@
 """Per-op compiled circuits — the reference FHE integration tier.
 
 Reference tests/test_qfloat_fhe.py compiles one Concrete circuit per QFloat
-operator and runs real encrypt/run/decrypt; the TPU analog compiles one XLA
+operator and runs real encrypt/run/decrypt; the analog here compiles one XLA
 executable per operator and checks (a) |circuit result - float result| <
 0.01 and (b) compiled == eager bit-parity (SURVEY.md section 4).
 """

@@ -162,17 +162,18 @@ def test_scan_lowering_requires_packed_backend(rng):
         qfloat_matrix_inverse(d, s, 3, 12, 6, 3, False, backend="limb", lowering="scan")
 
 
-def test_auto_policy_prefers_fused_on_tpu(monkeypatch):
+def test_auto_policy_prefers_fused_on_gpu(monkeypatch):
     """Pin the auto policy: with a fused-capable device context, auto
-    routes every published size and the probed n=11/12 to the fused
-    kernel, then hands over to scan."""
+    routes n <= FUSED_MAX_N to the fused kernels, then unroll, vec and
+    scan as n grows."""
     import matrix_inversion_tpu.models.inverse as inv_mod
 
     monkeypatch.setattr(inv_mod, "_fused_auto_ok", lambda: True)
-    # round 5: fused through n=12 (n=11/12 measured 20x+ the vec/scan
-    # alternatives on chip, benchmarks/results/fused.json)
-    for n in (2, 3, 4, 7, 10, 11, 12):
+    for n in range(2, inv_mod.FUSED_MAX_N + 1):
         assert inv_mod._resolve_lowering("auto", n, packed_ok=True) == "fused"
+    assert inv_mod._resolve_lowering(
+        "auto", inv_mod.FUSED_MAX_N + 1, packed_ok=True) == "unroll"
+    assert inv_mod._resolve_lowering("auto", 10, packed_ok=True) == "vec"
     assert inv_mod._resolve_lowering("auto", 13, packed_ok=True) == "scan"
     # non-fused contexts keep the vec band at n=9-12
     monkeypatch.setattr(inv_mod, "_fused_auto_ok", lambda: False)

@@ -1,7 +1,5 @@
 """Native marshalling library: bit-exactness vs the numpy reference path."""
 
-import subprocess
-import sys
 from pathlib import Path
 
 import numpy as np
@@ -16,10 +14,26 @@ REPO = Path(__file__).resolve().parent.parent
 @pytest.fixture(scope="module", autouse=True)
 def built_lib():
     if not native.available():
-        subprocess.run([str(REPO / "native" / "build.sh")], check=True)
-        native._TRIED = False  # re-probe
-    if not native.available():
-        pytest.skip("native toolchain unavailable")
+        try:
+            native.build()
+        except RuntimeError as exc:  # no compiler on this host
+            pytest.skip(str(exc))
+    assert native.available()
+
+
+def test_library_path_is_stamped():
+    """The loader only looks in a directory keyed to host and source."""
+    import hashlib
+    import platform
+
+    path = Path(native.library_path())
+    digest = hashlib.sha256(
+        (REPO / "native" / "qmarshal.cc").read_bytes()
+    ).hexdigest()[:12]
+    assert path.parent.parent == REPO / "native" / "build"
+    assert path.parent.name == (
+        f"{platform.node()}-{platform.machine()}-{digest}"
+    )
 
 
 def test_quantize_digits_exact(rng):

@@ -106,36 +106,24 @@ def _overflowy_batch(rng, n, scale=100):
 
 def test_fused_body_overflow_flags_bit_exact(rng):
     """Round-3 verdict missing #1: the fused kernel's overflow flags must be
-    bit-identical to the tracked unroll lowering.  Runs the kernel BODY
-    (pure jnp) eagerly — same program the Pallas kernel executes."""
-    from matrix_inversion_tpu.ops import pair_math as pm
-    from matrix_inversion_tpu.ops.fused_inverse import fused_inverse_body
+    bit-identical to the tracked unroll lowering.  Runs the kernels' stages
+    (``pallas=False``) eagerly on the whole batch — the same stage code the
+    Pallas kernels execute, flags OR-ed across stages and output rows."""
+    from matrix_inversion_tpu.ops.fused_inverse import fused_matrix_inverse
 
-    for n, preset in ((2, HIGH), (3, HIGH), (4, LOW)):
+    for n, preset in ((2, HIGH), (3, HIGH), (4, LOW), (4, HIGH)):
         p = preset.replace(n=n)
         M = _overflowy_batch(rng, n)
         mags, signs = float_matrix_to_mags_and_signs(
             M, p.qfloat_len, p.qfloat_ints, p.qfloat_base
         )
         ref_m, ref_s, ref_flag = _tracked_unroll(mags, signs, p, n)
-
-        hi, lo = pm.split64(jnp.asarray(mags, jnp.int64))
-        sg = jnp.asarray(signs, jnp.int32)
-        n2 = n * n
-        ohi, olo, osg, ovf = fused_inverse_body(
-            [hi[:, i] for i in range(n2)],
-            [lo[:, i] for i in range(n2)],
-            [sg[:, i] for i in range(n2)],
-            n, p.qfloat_len, p.qfloat_ints, p.qfloat_base, p.true_division,
-            track=True,
+        got_m, got_s, ovf = fused_matrix_inverse(
+            mags, signs, n, p.qfloat_len, p.qfloat_ints, p.qfloat_base,
+            p.true_division, track=True, pallas=False,
         )
-        got_m = np.stack(
-            [np.asarray(pm.join64(ohi[i], olo[i])).astype(np.int64)
-             for i in range(n2)], axis=-1,
-        )
-        got_s = np.stack([np.asarray(osg[i]) for i in range(n2)], axis=-1)
-        np.testing.assert_array_equal(got_m, np.asarray(ref_m))
-        np.testing.assert_array_equal(got_s, np.asarray(ref_s))
+        np.testing.assert_array_equal(np.asarray(got_m), np.asarray(ref_m))
+        np.testing.assert_array_equal(np.asarray(got_s), np.asarray(ref_s))
         np.testing.assert_array_equal(np.asarray(ovf), np.asarray(ref_flag))
         assert int(np.asarray(ovf)[0]) == 1  # the near-singular one flagged
 

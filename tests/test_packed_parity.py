@@ -1,6 +1,6 @@
 """Bit-exactness of the packed int64 backend vs the limb backend.
 
-The packed backend is the TPU performance path; these property tests prove
+The packed backend is the performance path; these property tests prove
 it reproduces the digit-array semantics EXACTLY (same digits, same signs)
 across every operation, including the cropping corner cases that make
 ``from_mul``/``invert`` non-value-functions.

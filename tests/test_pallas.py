@@ -1,14 +1,21 @@
-"""Pallas division kernel: bit-exactness vs the XLA fori_loop path.
+"""uint32-pair division/multiply routines (ops/pair_math.py) — the code the
+fused kernel runs — bit-exact against the int64 XLA paths and numpy."""
 
-Runs in interpreter mode on the CPU test mesh; the same kernel compiles
-natively on TPU (exercised by bench.py / the driver's compile check).
-"""
-
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from matrix_inversion_tpu.ops import pallas_kernels as pk
+from matrix_inversion_tpu.ops import pair_math as pm
+from pair_cases import adversarial_pairs
+
+
+def _pairs(x):
+    return pm.split64(jnp.asarray(x, jnp.int64))
+
+
+def _int64(hi, lo):
+    return np.asarray(pm.join64(hi, lo).astype(jnp.int64))
 
 
 @pytest.mark.parametrize("bits", [1, 2])
@@ -19,12 +26,8 @@ def test_division_parity(rng, bits, n):
     dividend = rng.randint(0, maxv, size=n).astype(np.int64)
     divisor = rng.randint(0, 1 << 40, size=n).astype(np.int64)
     divisor[:3] = 0  # include saturation cases
-    q = np.asarray(
-        pk.batched_long_division(
-            jnp.asarray(dividend), jnp.asarray(divisor), n_digits, bits,
-            interpret=True,
-        )
-    )
+    q = _int64(*pm.div_classic(*_pairs(dividend), *_pairs(divisor),
+                               n_digits, bits))
     nz = divisor != 0
     np.testing.assert_array_equal(q[nz], dividend[nz] // divisor[nz])
     np.testing.assert_array_equal(q[~nz], np.full(np.sum(~nz), maxv - 1))
@@ -33,45 +36,30 @@ def test_division_parity(rng, bits, n):
 def test_division_scalar_dividend(rng):
     # the invert() case: one constant dividend against a batch of divisors
     n_digits, bits = 61, 1
-    dividend = jnp.asarray(1 << 60, jnp.int64)
     divisor = rng.randint(1, 1 << 40, size=300).astype(np.int64)
-    q = np.asarray(
-        pk.batched_long_division(dividend, jnp.asarray(divisor), n_digits, bits,
-                                 interpret=True)
-    )
+    dividend = np.full_like(divisor, 1 << 60)
+    q = _int64(*pm.div_classic(*_pairs(dividend), *_pairs(divisor),
+                               n_digits, bits))
     np.testing.assert_array_equal(q, (1 << 60) // divisor)
 
 
-def test_packed_division_routes_to_pallas(rng):
-    """Force the Pallas path through PackedQFloat and compare to XLA."""
-    from matrix_inversion_tpu.ops import packed as packed_mod
+def test_packed_division_has_no_pallas_call(rng):
+    """Packed division at a large batch stays plain XLA: no kernel call."""
     from matrix_inversion_tpu.ops.packed import PackedQFloat
 
     d1 = rng.randint(0, 2, size=(4200, 23))
     d2 = rng.randint(0, 2, size=(4200, 23))
     d2[:, :12] = 0
     s = np.ones(4200, dtype=np.int64)
-    a = PackedQFloat.from_digits(d1, 9, 2, s)
-    b = PackedQFloat.from_digits(d2, 9, 2, s)
-    expected = (a.copy() / b.copy()).to_digits()
 
-    # interpret-mode Pallas on CPU
-    import functools
+    def divide(x, y):
+        a = PackedQFloat.from_digits(x, 9, 2, s)
+        b = PackedQFloat.from_digits(y, 9, 2, s)
+        return (a / b).to_digits()
 
-    orig = pk.batched_long_division
-    orig_float = pk.batched_long_division_float
-    try:
-        packed_mod.set_pallas_division(True)
-        pk.batched_long_division = functools.partial(orig, interpret=True)
-        pk.batched_long_division_float = functools.partial(
-            orig_float, interpret=True
-        )
-        got = (a.copy() / b.copy()).to_digits()
-    finally:
-        packed_mod.set_pallas_division(None)
-        pk.batched_long_division = orig
-        pk.batched_long_division_float = orig_float
-    np.testing.assert_array_equal(np.asarray(expected), np.asarray(got))
+    jaxpr = str(jax.make_jaxpr(divide)(d1, d2))
+    assert "pallas_call" not in jaxpr
+    assert jnp.asarray(divide(d1, d2)).shape == (4200, 23)
 
 
 @pytest.mark.parametrize(
@@ -85,7 +73,7 @@ def test_packed_division_routes_to_pallas(rng):
 )
 @pytest.mark.parametrize("n", [64, 4096])
 def test_mul_window_parity(rng, a_fmt, b_fmt, out_fmt, n):
-    """Pallas windowed multiply == XLA _mul_window_packed, bit for bit."""
+    """pair_math.mul_window == XLA _mul_window_packed, bit for bit."""
     from matrix_inversion_tpu.ops.packed import (
         _mul_window_consts,
         _mul_window_packed,
@@ -102,11 +90,8 @@ def test_mul_window_parity(rng, a_fmt, b_fmt, out_fmt, n):
             jnp.asarray(b, jnp.int64), b_ints, b_len, newlength, newints, 1,
         )
     )
-    got = np.asarray(
-        pk.batched_mul_window(
-            jnp.asarray(a), jnp.asarray(b), consts, newlength, interpret=True
-        )
-    )
+    got = _int64(*pm.mul_window(*_pairs(a), *_pairs(b), consts,
+                                (1 << newlength) - 1))
     np.testing.assert_array_equal(expected, got)
 
 
@@ -125,10 +110,8 @@ def test_mul_window_broadcast(rng):
             jnp.asarray(a), 16, 40, jnp.asarray(b), 16, 40, 40, 16, 1
         )
     )
-    got = np.asarray(
-        pk.batched_mul_window(jnp.asarray(a), jnp.asarray(b), consts, 40,
-                              interpret=True)
-    )
+    ahi, alo = _pairs(np.broadcast_to(a, b.shape))
+    got = _int64(*pm.mul_window(ahi, alo, *_pairs(b), consts, (1 << 40) - 1))
     np.testing.assert_array_equal(expected, got)
 
 
@@ -136,7 +119,6 @@ def test_mul_group_parity(rng):
     """Grouped multiply-scan (G products per step) is bit-exact for any G."""
     from matrix_inversion_tpu.ops import packed
     from matrix_inversion_tpu.ops.packed import _mul_window_packed
-    import jax
 
     a = jnp.asarray(rng.randint(0, 1 << 40, size=2000), jnp.int64)
     b = jnp.asarray(rng.randint(0, 1 << 40, size=2000), jnp.int64)
@@ -159,22 +141,6 @@ def test_mul_group_parity(rng):
 # ---------------------------------------------------------------------------
 
 
-def _adversarial_pairs(rng, divisor_bits, n_bits, n):
-    """Dividend/divisor pairs that stress the floor boundaries: r = q*D,
-    q*D - 1, q*D + D - 1 make the f32 estimate sit exactly on/next to an
-    integer, where an unfixed estimate would be off by one."""
-    maxv = 1 << n_bits
-    divisor = rng.randint(1, 1 << divisor_bits, size=n).astype(np.uint64)
-    q = rng.randint(0, 1 << 14, size=n).astype(np.uint64)
-    exact = divisor * q
-    cases = np.concatenate([
-        exact, exact - 1, exact + divisor - 1,
-        np.minimum(exact + divisor, maxv - 1),
-    ]).astype(np.uint64) % maxv
-    divisors = np.concatenate([divisor] * 4)
-    return cases.astype(np.int64), divisors.astype(np.int64)
-
-
 @pytest.mark.parametrize("divisor_bits,n_bits", [(40, 61), (23, 46), (47, 61)])
 def test_float_division_xla_exact(rng, divisor_bits, n_bits):
     from matrix_inversion_tpu.ops import packed as P
@@ -188,7 +154,7 @@ def test_float_division_xla_exact(rng, divisor_bits, n_bits):
     dividend[5:8] = 0
     dividend[8] = (1 << n_bits) - 1
     divisor[9] = 1
-    av, bv = _adversarial_pairs(rng, divisor_bits, n_bits, 500)
+    av, bv = adversarial_pairs(rng, divisor_bits, n_bits, 500)
     dividend = np.concatenate([dividend, av])
     divisor = np.concatenate([divisor, bv])
 
@@ -201,7 +167,7 @@ def test_float_division_xla_exact(rng, divisor_bits, n_bits):
 
 
 @pytest.mark.parametrize("divisor_bits,n_bits", [(40, 61), (23, 46)])
-def test_float_division_pallas_exact(rng, divisor_bits, n_bits):
+def test_float_division_pair_exact(rng, divisor_bits, n_bits):
     from matrix_inversion_tpu.ops import packed as P
 
     k = P._float_div_chunk_bits(n_bits, divisor_bits)
@@ -209,12 +175,11 @@ def test_float_division_pallas_exact(rng, divisor_bits, n_bits):
     dividend = rng.randint(0, 1 << n_bits, size=n, dtype=np.uint64).astype(np.int64)
     divisor = rng.randint(0, 1 << divisor_bits, size=n, dtype=np.uint64).astype(np.int64)
     divisor[:5] = 0
-    av, bv = _adversarial_pairs(rng, divisor_bits, n_bits, 400)
+    av, bv = adversarial_pairs(rng, divisor_bits, n_bits, 400)
     dividend = np.concatenate([dividend, av])
     divisor = np.concatenate([divisor, bv])
 
-    q = np.asarray(pk.batched_long_division_float(
-        jnp.asarray(dividend), jnp.asarray(divisor), n_bits, k, interpret=True))
+    q = _int64(*pm.div_float(*_pairs(dividend), *_pairs(divisor), n_bits, k))
     nz = divisor != 0
     np.testing.assert_array_equal(
         q[nz].astype(np.uint64), dividend[nz].astype(np.uint64) // divisor[nz].astype(np.uint64))

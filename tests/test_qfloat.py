@@ -1,7 +1,7 @@
 """QFloat semantics tests — port of reference tests/test_qfloat.py.
 
 Run for BOTH backends.  Where the reference draws 100 random scalars in a
-Python loop, we draw the same distribution as one batch (the TPU execution
+Python loop, we draw the same distribution as one batch (the batched execution
 model).  Oracles use absolute error (fixing the reference's weak
 ``x - y < 0.1`` assertions, see SURVEY.md 2.3).
 """

@@ -39,10 +39,23 @@ def test_scan_multiplies_by_length():
 
 
 def test_flagship_roofline_reports():
-    r = flagship_roofline(batch=8, measured_inversions_per_s=1e6)
+    r = flagship_roofline(1e12, batch=8, measured_inversions_per_s=1e6)
     assert r["ops_per_inversion_u32eq_floor"] > 1000
     assert (
         r["ops_per_inversion_u32eq_realistic"]
         > r["ops_per_inversion_u32eq_floor"]
     )
     assert r["mfu_pct_vs_realistic"] > r["mfu_pct_vs_upper"] > 0
+
+
+def test_kernel_op_histogram_counts_the_stages(monkeypatch):
+    """The fused kernels' op count comes from the stage code they run:
+    merging stages into more or fewer kernels moves no op."""
+    from matrix_inversion_tpu.ops import fused_inverse as fi
+    from matrix_inversion_tpu.utils.roofline import kernel_op_histogram
+
+    merged = kernel_op_histogram(n=3, preset="low", elems=8)
+    monkeypatch.setattr(fi, "STAGE_BUDGET", 1)
+    split = kernel_op_histogram(n=3, preset="low", elems=8)
+    assert merged == split
+    assert merged["mul"] > 0 and sum(merged.values()) > 1000

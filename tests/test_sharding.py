@@ -98,12 +98,11 @@ def test_dp_program_has_zero_collectives(rng):
 
 @pytest.mark.slow
 def test_fused_shard_map_matches_unroll(rng):
-    """The fused Pallas kernel under shard_map (one kernel per device on
-    its batch shard) is bit-exact with the single-device unrolled lowering.
+    """The fused kernel under shard_map (one kernel per device on its
+    batch shard) is bit-exact with the single-device unrolled lowering.
 
     n=2 LOW keeps the interpret-mode kernel body small enough for the CPU
-    mesh; real-TPU parity for larger n is checked on-chip
-    (benchmarks/results/fused.json).
+    mesh; ``python chip_smoke.py --four-cards`` checks n=4 High on GPUs.
     """
     from matrix_inversion_tpu.models.inverse import (
         qfloat_matrix_inverse_packed_io,
@@ -115,7 +114,7 @@ def test_fused_shard_map_matches_unroll(rng):
     M, d, s = _inputs(rng, p, 1024)
     mags = jnp.asarray(radix.pack_digits(np.asarray(d), p.qfloat_base))
     mesh = make_mesh(8, axis_names=("data",))
-    fn = data_parallel_inverse_fused(p, mesh, interpret=True)
+    fn = data_parallel_inverse_fused(p, mesh)
     gm, gs = fn(mags, s)
     rm, rs = qfloat_matrix_inverse_packed_io(
         mags, s, p.n, p.qfloat_len, p.qfloat_ints, p.qfloat_base,
@@ -152,7 +151,7 @@ def test_fused_shard_map_lu_path_matches_unroll(rng):
     mags = jnp.asarray(radix.pack_digits(np.asarray(d), p.qfloat_base))
     s = jnp.asarray(s)
     mesh = make_mesh(8, axis_names=("data",))
-    fn = data_parallel_inverse_fused(p, mesh, interpret=True)
+    fn = data_parallel_inverse_fused(p, mesh)
     gm, gs = fn(mags, s)
     rm, rs = qfloat_matrix_inverse_packed_io(
         mags, s, p.n, p.qfloat_len, p.qfloat_ints, p.qfloat_base,
